@@ -1,49 +1,41 @@
-"""Cascade-matcher validation at map scale (VERDICT round-2 item #7).
+"""Cascade-matcher validation at map scale.
 
-Builds a corpus-derived train set (every reference image's descriptors
-+ jittered copies) up to 128k rows, measures ratio-test DECISION
-agreement between the cascade matcher and the exact matcher, sweeping
-the candidate count C against the train size M, and times both paths.
-Writes CASCADE.json.
+Builds a train set from real SIFT descriptors of ten seeded textured
+images (sift_tpu.synth) plus jittered copies, up to 128k rows,
+measures ratio-test DECISION agreement between the cascade matcher
+and the exact matcher, sweeping the candidate count C against the
+train size M, and times both paths (wall time including compilation).
+Prints one JSON line per point; --out also writes them to a file.
 
-Agreement is measurable on CPU (default); wall times are only
-meaningful with --platform tpu.
+Runs on the GPU and fails without one; --platform cpu rehearses the
+agreement numbers on the CPU (its wall times are CPU times).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 
 import numpy as np
 
 
-def _corpus_descriptors(max_side: int = 640):
-    import cv2
+def _image_descriptors(n_images: int = 10, hw=(480, 640)):
+    """Valid descriptors of n seeded textured images (the object
+    texture: dense enough for hundreds of keypoints each)."""
     import jax.numpy as jnp
-    from sift_tpu import sift
-    names = ["scene.jpg", "book.jpg", "base.jpg", "bike.png",
-             "airplane.jpg", "cat2.jpg", "bean.jpg", "but.jpg",
-             "jnr.jpg", "rotate.jpg"]
+    from sift_tpu import sift, synth
     out = []
-    for n in names:
-        p = f"/root/reference/data/{n}"
-        if not os.path.exists(p):
-            continue
-        g = cv2.imread(p, cv2.IMREAD_GRAYSCALE).astype(np.float32)
-        s = max(g.shape) / max_side
-        if s > 1.0:
-            g = cv2.resize(g, (int(g.shape[1] / s), int(g.shape[0] / s)))
+    for i in range(n_images):
+        g = synth.object_image(*hw, seed=1000 + i)
         kp, d = sift.detect_and_compute(jnp.asarray(g))
         out.append(np.asarray(d)[np.asarray(kp.valid)])
     return out
 
 
 def _grow(base: np.ndarray, m: int, rng) -> np.ndarray:
-    """Corpus descriptors + sqrt-domain jittered copies up to m rows
+    """Image descriptors + sqrt-domain jittered copies up to m rows
     (keeps the sqrt-L1 distance structure of real descriptors, unlike
     uniform noise)."""
     rows = [base]
@@ -61,31 +53,31 @@ def _grow(base: np.ndarray, m: int, rng) -> np.ndarray:
 
 def main() -> int:
     ap = argparse.ArgumentParser(prog="bench_cascade")
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
     ap.add_argument("--n-query", type=int, default=2048)
-    ap.add_argument("--out", default="CASCADE.json")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    import jax
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-        os.environ.setdefault("SIFT_TPU_INTERPRET_PALLAS", "1")
+    from sift_tpu.utils.compile_cache import enable_compile_cache
+    from sift_tpu.utils.device import select_platform
+    select_platform(args.platform)
+    enable_compile_cache()
     import jax.numpy as jnp
     from sift_tpu.ops.match import match_ratio
     from sift_tpu.ops.match_cascade import match_ratio_cascade
 
     rng = np.random.default_rng(0)
-    per_img = _corpus_descriptors()
+    per_img = _image_descriptors()
     query = per_img[0][:args.n_query]
     base = np.concatenate(per_img[1:])
-    print(f"# query {len(query)} corpus-distractors {len(base)}",
+    print(f"# query {len(query)} image-distractors {len(base)}",
           file=sys.stderr)
 
     records = []
     for m in (8192, 32768, 131072):
         # the map-retrieval setting: the train set holds the queries'
         # true re-observations (jittered twins, prepended) among a
-        # corpus-derived sea of distractors — exact_good is then
+        # sea of distractors from the other images — exact_good is then
         # substantial, so agreement measures BOTH missed matches and
         # candidate-truncation hallucinations (a shrunken candidate
         # set can shrink d2 and pass the ratio test spuriously)
@@ -97,7 +89,7 @@ def main() -> int:
         q = jnp.asarray(query)
         t = jnp.asarray(train)
         t0 = time.perf_counter()
-        exact = match_ratio(q, t, impl="xla")
+        exact = match_ratio(q, t)
         ge = np.asarray(exact.good)
         te = np.asarray(exact.train_idx)
         t_exact = time.perf_counter() - t0
@@ -109,7 +101,7 @@ def main() -> int:
         t_nm = jnp.asarray(np.concatenate(
             [twins, _grow(np.concatenate(per_img[2:]),
                           m - len(twins), rng)]))
-        ge_nm = np.asarray(match_ratio(q_nm, t_nm, impl="xla").good)
+        ge_nm = np.asarray(match_ratio(q_nm, t_nm).good)
         for c in (32, 64, 128, 256):
             t0 = time.perf_counter()
             casc = match_ratio_cascade(q, t, n_candidates=c)
@@ -136,9 +128,10 @@ def main() -> int:
                    "platform": args.platform}
             records.append(rec)
             print(json.dumps(rec))
-    with open(args.out, "w") as f:
-        json.dump({"n_query": len(query), "records": records}, f,
-                  indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"n_query": len(query), "records": records}, f,
+                      indent=2)
     return 0
 
 

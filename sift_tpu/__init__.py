@@ -1,6 +1,6 @@
-"""sift_tpu — TPU-native SIFT + SfM framework.
+"""sift_tpu — SIFT + SfM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of
+A from-scratch JAX/XLA rebuild with the capabilities of
 canhld94/SIFT-GPU (CPU SIFT + matching + RANSAC homography demo),
 extended per the north star with RANSAC geometry, incremental SfM and
 distributed bundle adjustment over device meshes.

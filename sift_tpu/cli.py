@@ -13,30 +13,20 @@ written to a file with --out. Prints match/homography stats and, with
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
 
+from sift_tpu.utils.compile_cache import enable_compile_cache
 
-def _enable_compile_cache() -> None:
-    """Persist XLA compilations across processes (the 960x960 pipeline
-    costs minutes to compile; subsequent CLI runs hit the cache)."""
-    import jax
-    cache = os.environ.get("SIFT_TPU_COMPILE_CACHE",
-                           os.path.expanduser("~/.cache/sift_tpu_xla"))
-    if cache and cache != "0":
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# persist XLA compilations across processes: later CLI runs on the
+# same shapes hit the cache
+enable_compile_cache()
 
-
-_enable_compile_cache()
-
-from sift_tpu import io as sio
-from sift_tpu.config import DEFAULT_CONFIG
-from sift_tpu.pipeline import detect_object
-from sift_tpu.utils.profiling import StageTimer
+from sift_tpu import io as sio  # noqa: E402
+from sift_tpu.config import DEFAULT_CONFIG  # noqa: E402
+from sift_tpu.pipeline import detect_object  # noqa: E402
+from sift_tpu.utils.profiling import StageTimer  # noqa: E402
 
 
 def _draw(scene_path: str, obj_path: str, det, out_path: str) -> None:
@@ -67,7 +57,7 @@ def _draw(scene_path: str, obj_path: str, det, out_path: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="sift_tpu", description="TPU-native SIFT object detection")
+        prog="sift_tpu", description="SIFT object detection in JAX")
     ap.add_argument("scene")
     ap.add_argument("object")
     ap.add_argument("--out", default=None,
@@ -80,9 +70,6 @@ def main(argv=None) -> int:
                     help="also count dense NMS survivors against "
                          "detect_caps (rebuilds the pyramid once per "
                          "image — diagnostic, not free)")
-    ap.add_argument("--impl", default="auto",
-                    choices=["auto", "xla", "pallas"],
-                    help="matcher implementation")
     args = ap.parse_args(argv)
 
     timer = StageTimer(enabled=True)
@@ -95,10 +82,10 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(DEFAULT_CONFIG, match_ratio=args.ratio)
 
     with timer.stage("pipeline(compile+run)"):
-        det = detect_object(scene, obj, cfg=cfg, impl=args.impl)
+        det = detect_object(scene, obj, cfg=cfg)
         timer.sink(det.corners)
     with timer.stage("pipeline(steady)"):
-        det = detect_object(scene, obj, cfg=cfg, impl=args.impl)
+        det = detect_object(scene, obj, cfg=cfg)
         timer.sink(det.corners)
 
     # cap-saturation counters: a full octave batch means out_caps may

@@ -2,8 +2,8 @@
 
 Mirrors the reference's file-static parameter block (reference:
 src/sift.cpp:3-47) as an immutable dataclass, plus the static-shape
-sizing knobs (candidate caps, max keypoints) that a TPU pipeline needs
-because XLA requires static shapes where the reference grows
+sizing knobs (candidate caps, max keypoints) that a jitted pipeline
+needs because XLA requires static shapes where the reference grows
 std::vectors dynamically.
 
 Reference quirks we deliberately reproduce (they affect match parity):
@@ -50,104 +50,61 @@ class SIFTConfig:
     int_descr_fctr: float = 512.0        # SIFT_INT_DESCR_FCTR, sift.cpp:45
     nms_threshold: float = 8.0           # literal at sift.cpp:564 (NOT the computed 2)
 
-    # --- static-shape sizing (TPU-specific; no reference counterpart) ---
+    # --- static-shape sizing (no reference counterpart) ---
+    # XLA needs static shapes where the reference grows std::vectors,
+    # so every stage carries a fixed capacity sized for 1080p.
     # Max extremum candidates surfaced per octave (before refinement).
-    # Measured 1080p NMS survivor counts: (1664, 722, 265, 80, 30) on
-    # scene.jpg, but (2481, 898, 280, ...) on the rotated invariance
-    # probe at 1080p (rotation boundaries are extrema-dense) — the old
-    # (2048, 1024, ...) caps silently dropped the 433 weakest octave-0
-    # candidates there and cost 65 keypoints vs the reference (the
-    # round-4 rotate1080 recall failure). Truncation is
-    # |response|-ranked; sift.candidate_saturation flags a full cap.
+    # Rotated 1080p frames are extrema-dense along the rotation
+    # boundary (~2500 octave-0 NMS survivors), so octave 0 carries
+    # 4096. Truncation is |response|-ranked;
+    # sift.candidate_saturation flags a full cap.
     detect_caps: Tuple[int, ...] = (4096, 2048, 512, 256, 128)
     # Final per-octave keypoint/descriptor capacity after refinement +
-    # orientation expansion. Measured valid counts: (685, 167, 63, 30,
-    # 21) at 1080p, (1017, 225, 63, 40, 19) at full-res 2048x1280 —
-    # ~1.5-2x headroom at every octave, and less than half the
-    # descriptor/matcher work vs using detect_caps as output caps.
+    # orientation expansion: ~1.5-2x headroom over the valid counts a
+    # natural 1080p frame gives, and less than half the descriptor and
+    # matcher work of using detect_caps as output caps.
     # octave_saturation flags any octave that fills its cap.
     out_caps: Tuple[int, ...] = (1024, 256, 128, 64, 64)
     # Max orientation peaks expanded per refined keypoint.
     max_ori_peaks: int = 4
     # Orientation histogram formulation: "onehot" materializes one
     # (P, 36) one-hot per keypoint; "onehot_t" the transposed (36, P)
-    # one-hot (samples on lanes); "factored" two (P, 6) one-hots
-    # (~3x less intermediate traffic, same math reassociated). Parity
-    # tested in tests/test_ori_cap.py. Under the dynamic_slice gather
-    # the 2026-08-18 A/B picked factored (13.68 vs 13.80/14.88 ms
-    # detect); switching the gather to the Pallas DMA kernel moved the
-    # bottleneck and flipped the ranking — 2026-08-19 ORI_AB.json at
-    # the pallas base: onehot_t 10.44 / onehot 10.49 / factored 11.32.
+    # one-hot; "factored" two (P, 6) one-hots (~3x less intermediate
+    # traffic, same math reassociated). Parity tested in
+    # tests/test_ori_cap.py. Not yet compared on the GPU (ROADMAP).
     ori_hist_impl: str = "onehot_t"
-    # Orientation patch gather: "dynamic_slice" is one vmapped
-    # dynamic_slice per keypoint (lowers to serialized ~us gathers on
-    # TPU — measured as detect's largest sub-stage, BENCH_INTERNALS
-    # ori_patch_gather 11.35 ms standalone at 1080p); "pallas" batches
-    # G=8 async patch DMAs per grid step (ops/ori_gather_pallas.py).
-    # Both return identical values (tests/test_ori_gather.py).
-    # Default decided by on-chip A/B 2026-08-19 (ORI_GATHER_AB.json):
-    # pallas 10.71 ms detect vs dynamic_slice 11.93 at 1080p. The
-    # batched facade (detect_and_compute_batch) overrides this to
-    # dynamic_slice — see the note there.
-    ori_gather_impl: str = "pallas"
     # Final global keypoint budget after cross-octave compaction.
     max_keypoints: int = 4096
     # Matcher ratio-test threshold (reference src/main.cpp:38).
     match_ratio: float = 0.86
     # Materialize the descriptor trilinear one-hot (the pipeline's
     # largest intermediate, ~1 GB/frame at f32) in bfloat16: halves
-    # its HBM traffic and uses native-bf16 MXU passes. Descriptor
-    # deviation stays ~1e-2 L1 (values are 0..1 weights); the recall
-    # gate (eval.py) validates match decisions end to end. False =
-    # bit-exact f32 mode (used by kernel-parity tests).
+    # its memory traffic and runs bf16 tensor-core products with f32
+    # accumulation. Descriptor deviation stays ~1e-2 L1 (values are
+    # 0..1 weights); the recall gate (eval.py) validates match
+    # decisions end to end. False = bit-exact f32 mode (full float32
+    # products; used by parity tests).
     descr_rc_bf16: bool = True
     # Descriptor one-hot layout: "pk" puts the trilinear bin axes
-    # (6/10/36 wide) on the LANE axis (pads to 128); "kp" transposes
-    # so the ~6900 patch samples ride the lanes at full utilization.
-    # Same math. Under the dynamic_slice gather the 2026-08-18 A/B
-    # picked kp (17.86 vs 18.10 ms detect+describe); at the Pallas
-    # double-buffered-gather base the ranking flipped — 2026-08-19
-    # DESCR_AB.json: pk 12.75 vs kp 13.30.
+    # (6/10/36 wide) last; "kp" transposes so the ~6900 patch samples
+    # are the minor axis. Same math. Not yet compared on the GPU.
     descr_layout: str = "pk"
-    # Descriptor patch gather: same choice as ori_gather_impl (the
-    # descriptor window is 81x81 vs orientation's 37x37 — both fit
-    # the kernel's one-lane-tile limit). Parity:
-    # tests/test_descr_gather.py. Default decided by on-chip A/B
-    # 2026-08-19 (DESCR_GATHER_AB.json): pallas 15.79 ms
-    # detect+describe vs dynamic_slice 17.32 at 1080p (the pallas arm
-    # gathers per 64-keypoint chunk inside lax.map, so the patch
-    # intermediate stays chunk-bounded). Batched facade overrides to
-    # dynamic_slice (see detect_and_compute_batch).
-    descr_gather_impl: str = "pallas"
-    # Per-chip execution mode for the multi-frame pipeline
+    # Per-device execution mode for the multi-frame pipeline
     # (parallel/frames.py): "batch" runs detect_and_compute_batch on
-    # the chip's local frames in one grid-batched program; "scan" runs
-    # the single-frame latency graph per local frame under lax.map
-    # (one program, frames serialized on-device). Decided by the
-    # on-chip B x resolution sweep 2026-08-19 (BENCH_BATCH.json):
-    # latency-mode frames/s beats batched at EVERY measured point —
-    # 480p 122.4 vs 60.2/58.4 (B4/B8), 720p 104.2 vs 49.6/50.1,
-    # 1080p 68.5 vs 39.6/36.9 — so each chip scans its local frames
-    # through the latency graph.
+    # the device's local frames in one grid-batched program; "scan"
+    # runs the single-frame latency graph per local frame under
+    # lax.map (one program, frames serialized on-device). Not yet
+    # compared on the GPU.
     frames_per_chip_mode: str = "scan"
 
     def __post_init__(self):
         # variant literals are matched by string in the ops; a typo
         # would silently fall back to the default implementation and
-        # corrupt A/B artifacts (ORI_AB/DESCR_AB timing the same arm
-        # twice) — fail loudly instead
+        # make an A/B time the same arm twice — fail loudly instead
         if self.ori_hist_impl not in ("onehot", "onehot_t", "factored"):
             raise ValueError(
                 f"ori_hist_impl={self.ori_hist_impl!r}: expected "
                 "'onehot', 'onehot_t' or 'factored'")
-        if self.ori_gather_impl not in ("dynamic_slice", "pallas"):
-            raise ValueError(
-                f"ori_gather_impl={self.ori_gather_impl!r}: expected "
-                "'dynamic_slice' or 'pallas'")
-        if self.descr_gather_impl not in ("dynamic_slice", "pallas"):
-            raise ValueError(
-                f"descr_gather_impl={self.descr_gather_impl!r}: "
-                "expected 'dynamic_slice' or 'pallas'")
         if self.descr_layout not in ("pk", "kp"):
             raise ValueError(
                 f"descr_layout={self.descr_layout!r}: expected "

@@ -1,7 +1,7 @@
 """Geometric verification + multi-view geometry.
 
 Replaces reference C12 (cv::findHomography(RANSAC) +
-perspectiveTransform, src/main.cpp:44-68) with our own TPU-native
+perspectiveTransform, src/main.cpp:44-68) with our own batched
 batched-hypothesis RANSAC, and extends it (north star) with two-view
 epipolar geometry, triangulation and pose estimation for SfM.
 """

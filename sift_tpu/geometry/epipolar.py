@@ -1,14 +1,14 @@
 """Two-view epipolar geometry: essential matrix RANSAC + pose recovery.
 
 New capability per the north star (the reference stops at homography).
-Same TPU-first shape as geometry/homography.py: a fixed, seeded batch
+Same batched shape as geometry/homography.py: a fixed, seeded batch
 of minimal samples solved in parallel by vmap, masked inlier counting,
 no data-dependent iteration.
 
 Two minimal solvers, both batched under vmap:
   * "5pt" (default): Nistér's 5-point (geometry/fivepoint.py) — up to
     10 essential candidates per minimal sample via a degree-10
-    polynomial solved with fixed-iteration Durand-Kerner (TPU has no
+    polynomial solved with fixed-iteration Durand-Kerner (XLA has no
     nonsymmetric eig). At low inlier ratios (real loop closures) a
     5-point sample survives contamination ~(1/w)^3 more often than an
     8-point sample, so far fewer hypotheses reach the same inlier set.
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from sift_tpu.geometry.triangulation import triangulate
 from sift_tpu.geometry.linalg import smallest_eigvec
 from sift_tpu.geometry.lie import hat, so3_exp, so3_log
+from sift_tpu.utils.precision import highest_precision
 
 
 class EssentialResult(NamedTuple):
@@ -38,6 +39,7 @@ class EssentialResult(NamedTuple):
     ok: jnp.ndarray         # () bool
 
 
+@highest_precision
 def _eight_point(p0: jnp.ndarray, p1: jnp.ndarray) -> jnp.ndarray:
     """Essential matrix from 8 normalized correspondences (8, 2) each.
 
@@ -56,6 +58,7 @@ def _eight_point(p0: jnp.ndarray, p1: jnp.ndarray) -> jnp.ndarray:
     return (u * jnp.array([sm, sm, 0.0])) @ vt
 
 
+@highest_precision
 def _sampson_sq(e: jnp.ndarray, p0: jnp.ndarray, p1: jnp.ndarray
                 ) -> jnp.ndarray:
     """Squared Sampson distance in normalized coords: (N,)."""
@@ -70,6 +73,7 @@ def _sampson_sq(e: jnp.ndarray, p0: jnp.ndarray, p1: jnp.ndarray
     return jnp.where(jnp.isfinite(err), err, jnp.inf)
 
 
+@highest_precision
 def _decompose(e: jnp.ndarray, p0: jnp.ndarray, p1: jnp.ndarray,
                mask: jnp.ndarray):
     """Pick the (R, t) among the 4 decompositions with the most
@@ -102,6 +106,7 @@ def _decompose(e: jnp.ndarray, p0: jnp.ndarray, p1: jnp.ndarray,
 
 
 @functools.partial(jax.jit, static_argnames=("n_hypotheses", "solver"))
+@highest_precision
 def find_essential_ransac(p0: jnp.ndarray, p1: jnp.ndarray,
                           valid: Optional[jnp.ndarray] = None,
                           threshold: float = 1e-3,

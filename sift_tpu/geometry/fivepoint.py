@@ -16,8 +16,8 @@ per-sample control flow:
   4. Nistér's 3x3 polynomial matrix -> degree-10 polynomial in z
      (1-D coefficient convolutions)
   5. all 10 roots at once with Durand-Kerner iteration in complex64
-     (TPU has no nonsymmetric `eig`; DK is fixed-iteration elementwise
-     math, MXU/VPU food). Coefficients are rescaled by the Cauchy root
+     (XLA has no batched nonsymmetric `eig` on accelerators; DK is
+     fixed-iteration elementwise math). Coefficients are rescaled by the Cauchy root
      bound with NEGATIVE powers so complex64 never overflows.
   6. x, y back-substitution per real root (2x2 solves)
 

@@ -2,13 +2,13 @@
 
 The reference delegates to cv::findHomography(obj, scene, RANSAC)
 (src/main.cpp:54) and cv::perspectiveTransform (src/main.cpp:62).
-This module owns both, built TPU-first:
+This module owns both, built for batched execution:
 
   * Hypotheses are evaluated **in parallel**: a fixed batch of minimal
     4-point samples (seeded, deterministic — SURVEY.md §7 hard part e)
     is drawn with a Gumbel-top-4 trick over the validity mask, each
     solved by a vmapped 8x8 DLT, and all inlier counts computed in one
-    shot — the TPU-idiomatic inversion of OpenCV's sequential
+    shot — the data-parallel inversion of OpenCV's sequential
     early-exit RANSAC loop (vmap over hypotheses instead of a
     data-dependent while loop).
   * The winning hypothesis is refined by a masked normalized DLT over
@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 from sift_tpu.geometry.linalg import smallest_eigvec
+from sift_tpu.utils.precision import highest_precision
 
 
 class HomographyResult(NamedTuple):
@@ -84,12 +85,13 @@ def _normalization(pts: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
         [[scale], [scale], [1.0]])
 
 
+@highest_precision
 def _dlt_masked(src: jnp.ndarray, dst: jnp.ndarray, mask: jnp.ndarray
                 ) -> jnp.ndarray:
     """Least-squares DLT over all masked correspondences.
 
     Normalized (Hartley) for conditioning; solved via the smallest
-    eigenvector of the 9x9 A^T A (TPU-friendly; avoids a tall SVD).
+    eigenvector of the 9x9 A^T A (batches well; avoids a tall SVD).
     """
     ts = _normalization(src, mask)
     td = _normalization(dst, mask)
@@ -109,6 +111,7 @@ def _dlt_masked(src: jnp.ndarray, dst: jnp.ndarray, mask: jnp.ndarray
     return h / jnp.where(jnp.abs(h[2, 2]) > 1e-12, h[2, 2], 1.0)
 
 
+@highest_precision
 def _gauss_newton(H: jnp.ndarray, src: jnp.ndarray, dst: jnp.ndarray,
                   mask: jnp.ndarray, iters: int = 5) -> jnp.ndarray:
     """Polish H by Gauss-Newton on masked reprojection error
@@ -147,6 +150,7 @@ def _gauss_newton(H: jnp.ndarray, src: jnp.ndarray, dst: jnp.ndarray,
 
 
 @functools.partial(jax.jit, static_argnames=("n_hypotheses", "refine"))
+@highest_precision
 def find_homography_ransac(src: jnp.ndarray, dst: jnp.ndarray,
                            valid: Optional[jnp.ndarray] = None,
                            threshold: float = 3.0,

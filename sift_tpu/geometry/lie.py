@@ -9,6 +9,7 @@ safe under jit/grad.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from sift_tpu.utils.precision import highest_precision
 
 _EPS = 1e-8
 
@@ -24,6 +25,7 @@ def hat(w: jnp.ndarray) -> jnp.ndarray:
     ])
 
 
+@highest_precision
 def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
     """Rodrigues: axis-angle (3,) -> rotation matrix (3, 3)."""
     theta2 = jnp.dot(w, w)
@@ -47,6 +49,7 @@ def so3_log(r: jnp.ndarray) -> jnp.ndarray:
     return w * scale
 
 
+@highest_precision
 def se3_apply(r: jnp.ndarray, t: jnp.ndarray, x: jnp.ndarray
               ) -> jnp.ndarray:
     """Apply (R, t) to points x (..., 3)."""

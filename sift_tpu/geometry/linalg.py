@@ -1,11 +1,10 @@
 """Small-matrix linear algebra helpers shared by the geometry stack.
 
-jnp.linalg.eigh in float32 on TPU is markedly less accurate than
-LAPACK (measured ~400x worse nullspace residuals on 9x9 DLT systems),
-which breaks minimal solvers whose answer IS the nullspace. We polish
-the smallest eigenvector with a few inverse-power iterations — each a
-tiny dense solve — which restores near-machine-precision nullspaces
-while staying batched/vmappable.
+A float32 eigh on an accelerator need not match LAPACK's accuracy,
+and minimal solvers whose answer IS the nullspace break on a loose
+one. We polish the smallest eigenvector with a few inverse-power
+iterations — each a tiny dense solve — which restores
+near-machine-precision nullspaces while staying batched/vmappable.
 """
 
 from __future__ import annotations

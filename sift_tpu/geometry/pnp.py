@@ -1,7 +1,7 @@
 """Perspective-n-Point: camera pose from 2D-3D correspondences.
 
 Used by incremental SfM to register new views against the map. Same
-TPU-first RANSAC shape as homography/epipolar: a fixed seeded batch of
+Batched RANSAC shape as homography/epipolar: a fixed seeded batch of
 minimal samples (6-point DLT — the P3P quartic is hostile to batched
 execution; thousands of parallel DLT hypotheses close the gap), masked
 inlier counting, locally-optimized refit, Gauss-Newton polish on the
@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from sift_tpu.geometry.linalg import smallest_eigvec
 from sift_tpu.geometry.lie import so3_exp, so3_log
+from sift_tpu.utils.precision import highest_precision
 
 
 class PnPResult(NamedTuple):
@@ -28,6 +29,7 @@ class PnPResult(NamedTuple):
     ok: jnp.ndarray         # () bool
 
 
+@highest_precision
 def _dlt_pnp(x: jnp.ndarray, p: jnp.ndarray, w: jnp.ndarray):
     """Weighted DLT pose: world points x (N,3), normalized obs p (N,2),
     weights w (N,). Returns (R, t) with R orthogonalized by SVD.
@@ -75,6 +77,7 @@ def _dlt_pnp(x: jnp.ndarray, p: jnp.ndarray, w: jnp.ndarray):
     return r, t
 
 
+@highest_precision
 def _planar_pnp(x: jnp.ndarray, p: jnp.ndarray, w: jnp.ndarray):
     """Weighted pose for (near-)coplanar points: the 6-point DLT's
     12x12 system drops rank when the sample lies on one plane (walls,
@@ -131,6 +134,7 @@ def _planar_pnp(x: jnp.ndarray, p: jnp.ndarray, w: jnp.ndarray):
     return r, t_p - r @ cen
 
 
+@highest_precision
 def _reproj_sq(r, t, x, p):
     xc = x @ r.T + t
     z = xc[:, 2]
@@ -142,6 +146,7 @@ def _reproj_sq(r, t, x, p):
 
 
 @functools.partial(jax.jit, static_argnames=("n_hypotheses",))
+@highest_precision
 def pnp_ransac(x: jnp.ndarray, p: jnp.ndarray,
                valid: Optional[jnp.ndarray] = None,
                threshold: float = 2e-3,

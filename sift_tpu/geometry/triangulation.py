@@ -1,4 +1,4 @@
-"""Linear (DLT) triangulation, batched for TPU.
+"""Linear (DLT) triangulation, batched.
 
 New capability per the north star. Points are triangulated from two
 views via the homogeneous DLT system solved as the smallest
@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from sift_tpu.geometry.linalg import smallest_eigvec
+from sift_tpu.utils.precision import highest_precision
 
 
 def _projection_matrix(r: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
@@ -18,6 +19,7 @@ def _projection_matrix(r: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
     return jnp.concatenate([r, t[:, None]], axis=1)
 
 
+@highest_precision
 def triangulate(r0: jnp.ndarray, t0: jnp.ndarray,
                 r1: jnp.ndarray, t1: jnp.ndarray,
                 p0: jnp.ndarray, p1: jnp.ndarray) -> jnp.ndarray:
@@ -42,6 +44,7 @@ def triangulate(r0: jnp.ndarray, t0: jnp.ndarray,
     return jax.vmap(one)(p0.astype(jnp.float32), p1.astype(jnp.float32))
 
 
+@highest_precision
 def reprojection_error(r: jnp.ndarray, t: jnp.ndarray,
                        x: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Per-point normalized-coordinate reprojection error (N,)."""

@@ -4,8 +4,8 @@ The reference's live path is a naive O(H*W*k^2) 2-D convolution
 (Gaussian_Blur, src/sift.cpp:123-153). Its 2-D kernel is the analytic
 Gaussian truncated at radius floor(3*sigma) and NOT renormalized
 (src/sift.cpp:95-108) — which factors exactly into two 1-D truncated
-Gaussians, so we run it separably: two XLA convolutions that lower onto
-the MXU, with all scales of an octave batched into the channel
+Gaussians, so we run it separably: two XLA convolutions (float32 at
+full precision), with all scales of an octave batched into the channel
 dimension (the base-relative sigma scheme, src/sift.cpp:241-258, makes
 octave layers independent).
 
@@ -63,8 +63,9 @@ def gaussian_blur_multi_batch(imgs: jnp.ndarray,
     """Blur a batch of images with several sigmas: (B, H, W) -> (B, S, H, W).
 
     Same math as gaussian_blur_multi with the frame batch riding the
-    conv's N dimension (the single-chip throughput path batches frames
-    to fill the MXU; small octaves underfill it one frame at a time).
+    conv's N dimension (the single-device throughput path batches
+    frames to fill the device; small octaves underfill it one frame at
+    a time).
     """
     kmat, w = _stack_kernels(sigmas)
     s = kmat.shape[0]

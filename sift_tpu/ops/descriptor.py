@@ -8,16 +8,16 @@ scatter, then the reference's exact normalization chain — L2-clip at
 (the RootSIFT-style tail at src/sift.cpp:711-721 that makes NORM_L1
 matching with ratio 0.86 work).
 
-TPU-first restructuring: the reference's per-sample scatter into a
+Restructured for XLA: the reference's per-sample scatter into a
 (d+2)x(d+2)x(n+2) histogram becomes per-axis soft one-hot weight
-matrices contracted on the MXU:
+matrices contracted as a matrix product (tensor cores in bf16):
 
     hist[(row,col), ori] = sum_p RC[p, (row,col)] * OM[p, ori]
 
 where RC is the outer product of the row/col trilinear weights and OM
 carries the orientation weights times gradient magnitude. Keypoints
 gather fixed max-radius patches from a pre-padded octave stack (one
-dynamic_slice each; no data-dependent shapes) and mask the samples
+vmapped dynamic_slice; no data-dependent shapes) and mask the samples
 their true radius excludes. Batched over keypoints with vmap, chunked
 with lax.map to bound the RC intermediate.
 """
@@ -123,10 +123,8 @@ def descriptors_octave(gauss: jnp.ndarray, kp: Keypoints,
         rows = jnp.arange(d + 2)
         obins = jnp.arange(n + 2)
         if cfg.descr_layout == "kp":
-            # transposed layout: the P~6900 samples ride the LANE axis
-            # at full utilization; the 6/10/36-wide bin axes live on
-            # sublanes instead of padding to 128 lanes (~3.5x fewer
-            # vregs for the one-hot products than the "pk" layout)
+            # transposed layout: the P~6900 samples are the minor
+            # axis and the 6/10/36-wide bin axes the major one
             rw = ((rows[:, None] == (r0i + 1)[None, :]) * (1.0 - fr)[None, :]
                   + (rows[:, None] == (r0i + 2)[None, :]) * fr[None, :])
             cw = ((rows[:, None] == (c0i + 1)[None, :]) * (1.0 - fc)[None, :]
@@ -142,7 +140,7 @@ def descriptors_octave(gauss: jnp.ndarray, kp: Keypoints,
                                   preferred_element_type=jnp.float32)
             else:
                 hist = jnp.einsum("kp,op->ko", rc, ow,
-                                  precision=jax.lax.Precision.HIGH)
+                                  precision=jax.lax.Precision.HIGHEST)
         else:
             # trilinear soft one-hots: (P, d+2), (P, d+2), (P, n+2)
             rw = ((rows[None, :] == (r0i + 1)[:, None]) * (1.0 - fr)[:, None]
@@ -156,19 +154,18 @@ def descriptors_octave(gauss: jnp.ndarray, kp: Keypoints,
             rc = (rw[:, :, None] * cw[:, None, :]
                   ).reshape(-1, (d + 2) * (d + 2))
             if cfg.descr_rc_bf16:
-                # bf16 one-hot + magnitudes: halves the HBM traffic of
-                # the pipeline's largest intermediate and runs
-                # native-bf16 MXU passes; ~1e-2 L1 deviation, validated
-                # by the recall gate
+                # bf16 one-hot + magnitudes with f32 accumulation:
+                # halves the memory traffic of the pipeline's largest
+                # intermediate and runs on tensor cores; ~1e-2 L1
+                # deviation, validated by the recall gate
                 hist = jnp.einsum("pk,po->ko", rc.astype(jnp.bfloat16),
                                   ow.astype(jnp.bfloat16),
                                   preferred_element_type=jnp.float32)
             else:
-                # HIGH (bf16x3 passes): 2.2x faster than HIGHEST on the
-                # MXU with max descriptor deviation 0.002 L1 (measured;
-                # distances are O(1-10), matching unaffected)
+                # bit-exact parity mode: full float32 products (no
+                # TF32 or bf16 passes)
                 hist = jnp.einsum("pk,po->ko", rc, ow,
-                                  precision=jax.lax.Precision.HIGH)
+                                  precision=jax.lax.Precision.HIGHEST)
         hist = hist.reshape(d + 2, d + 2, n + 2)
         # circular orientation fold (src/sift.cpp:676-684)
         hist = hist.at[:, :, 0].add(hist[:, :, n])
@@ -194,21 +191,13 @@ def descriptors_octave(gauss: jnp.ndarray, kp: Keypoints,
 
     pn = 2 * rd + 3
 
-    # Both gather impls run PER CHUNK inside the lax.map body so the
-    # patch intermediate is bounded to chunk patches — an up-front
-    # whole-cap pallas gather materializes ~290 MB of HBM at cap=4096
-    # (kernel output (cap, 88, 128) f32 + the (cap, 81, 81) slice),
-    # defeating the chunked-RC memory rationale (ADVICE r4 #2).
-    def run_chunk_ds(args):
+    # the gather runs PER CHUNK inside the lax.map body so the patch
+    # intermediate stays bounded to chunk patches
+    def run_chunk(args):
         layer_c, r_c, rest = args[0], args[1], args[2:]
-        if cfg.descr_gather_impl == "pallas":
-            from sift_tpu.ops.ori_gather_pallas import gather_patches
-            patch_c = gather_patches(padded, layer_c - 1, r_c, rest[0],
-                                     pn)
-        else:
-            patch_c = jax.vmap(lambda l0, r0, c0: jax.lax.dynamic_slice(
-                padded, (l0 - 1, r0, c0), (1, pn, pn))[0])(
-                    layer_c, r_c, rest[0])
+        patch_c = jax.vmap(lambda l0, r0, c0: jax.lax.dynamic_slice(
+            padded, (l0 - 1, r0, c0), (1, pn, pn))[0])(
+                layer_c, r_c, rest[0])
         return jax.vmap(one)(patch_c, r_c, *rest)
 
     common = (kp.r.reshape(n_chunks, ch),
@@ -217,6 +206,6 @@ def descriptors_octave(gauss: jnp.ndarray, kp: Keypoints,
               kp.angle.reshape(n_chunks, ch),
               kp.valid.reshape(n_chunks, ch))
     out = jax.lax.map(
-        run_chunk_ds,
+        run_chunk,
         (kp.layer.reshape(n_chunks, ch),) + common)
     return out.reshape(cap, d * d * n)

@@ -6,9 +6,9 @@ candidate iff |val| > 8 (the literal threshold passed at
 src/sift.cpp:564) and it is >= (resp. <=) every neighbor of its
 3x3x3 DoG cube, with a 5 px border margin (src/sift.cpp:487-491).
 
-TPU-first restructuring: the reference walks pixels serially and
+Restructured for XLA: the reference walks pixels serially and
 pushes into TLS vectors; we evaluate the NMS as a dense masked
-array program over the whole octave (fused elementwise on the VPU)
+array program over the whole octave (one fused elementwise loop)
 and surface the top-K candidates by |response| via top_k — fixed
 capacity, validity-masked.
 """
@@ -183,9 +183,9 @@ def _window_census(score3: jnp.ndarray, kb: int, blk: int):
 def _windowed_reduce(score3: jnp.ndarray) -> jnp.ndarray:
     """Two windowed max passes over 16-column windows -> interleaved
     (..., n_windows*2) int32 keys holding every candidate of every
-    window with <= 2 candidates (one VPU pass each; replaces the
-    stage-1 block SORT of the two-stage top-k, which at 1080p cost
-    3.2 ms of pure sort bandwidth for the same selection)."""
+    window with <= 2 candidates (one elementwise pass each; replaces
+    the stage-1 block SORT of the two-stage top-k, which sorts 8x more
+    keys for the same selection)."""
     keys = _pack_keys(score3)
     nd = keys.ndim
     win = (1,) * (nd - 1) + (_G,)
@@ -214,8 +214,8 @@ def _unpack_keys(keyvals: jnp.ndarray, positions: jnp.ndarray):
 def _top_k_windowed(score3: jnp.ndarray, cap: int, blk: int = 4096,
                     kb: int = 128):
     """Exact top-cap candidate extraction from a dense (nl, H, W)
-    score field, cheap on TPU: candidates are ~1e-4 dense, so two
-    16-column windowed max passes (bandwidth-bound VPU) shrink the
+    score field: candidates are ~1e-4 dense, so two 16-column
+    windowed max passes (bandwidth-bound elementwise work) shrink the
     sort problem 8x before any top_k runs. An exact census arms a
     lax.cond fallback to the dense two-stage sort for inputs too
     clustered for the window capacity (never observed on real frames;
@@ -293,12 +293,8 @@ def top_candidates_batch(dog: jnp.ndarray, cap: int,
     (B, cap). Same semantics per frame as top_candidates."""
     nl = cfg.n_octave_layers
     nb, _, h, w = dog.shape
-    if jax.default_backend() == "tpu":
-        from sift_tpu.ops.extrema_pallas import extrema_scores_batch_pallas
-        score3 = extrema_scores_batch_pallas(dog, cfg)
-    else:
-        mask = jax.vmap(lambda d: extrema_mask(d, cfg))(dog)
-        score3 = jnp.where(mask, jnp.abs(dog[:, 1:1 + nl]), -1.0)
+    mask = jax.vmap(lambda d: extrema_mask(d, cfg))(dog)
+    score3 = jnp.where(mask, jnp.abs(dog[:, 1:1 + nl]), -1.0)
     n = score3[0].size
     k = min(cap, n)
     if n <= 8192 or n <= cap:
@@ -331,12 +327,8 @@ def top_candidates(dog: jnp.ndarray, cap: int,
     """
     nl = cfg.n_octave_layers
     h, w = dog.shape[1], dog.shape[2]
-    if jax.default_backend() == "tpu":
-        from sift_tpu.ops.extrema_pallas import extrema_scores_pallas
-        score3 = extrema_scores_pallas(dog, cfg)
-    else:
-        mask = extrema_mask(dog, cfg)
-        score3 = jnp.where(mask, jnp.abs(dog[1:1 + nl]), -1.0)
+    mask = extrema_mask(dog, cfg)
+    score3 = jnp.where(mask, jnp.abs(dog[1:1 + nl]), -1.0)
     n = score3.size
     k = min(cap, n)
     if n <= 8192 or n <= cap:   # tiny octave: plain exact top_k

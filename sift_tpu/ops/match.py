@@ -3,22 +3,21 @@
 Functional twin of BFMatcher(NORM_L1).knnMatch(query, train, k=2) plus
 the Lowe ratio test `d1 <= ratio * d2` (reference src/main.cpp:25-40,
 ratio 0.86). The reference outsources this to OpenCV; here it is our
-own tiled kernel — the pipeline's GEMM-shaped hot spot
-(O(N*M*128) distances, SURVEY.md §3.5).
+own tiled XLA program — the pipeline's O(N*M*128) distance hot spot
+(SURVEY.md §3.5).
 
-TPU-first design: descriptors live in fixed-capacity padded arrays
-with validity masks. Invalid train rows are pre-masked to a huge
-sentinel value so their distances never win; invalid query rows are
-filtered after the fact. Two implementations:
+Descriptors live in fixed-capacity padded arrays with validity masks.
+Invalid train rows are pre-masked to a huge sentinel value so their
+distances never win; invalid query rows are filtered after the fact.
+`knn2_l1_xla` maps over query tiles and lets XLA fuse the broadcast
+|q - t| sums; top_k then picks the best two per row. Tie-breaking
+matches BFMatcher's stable ordering (lowest train index wins equal
+distances).
 
-  * `knn2_l1_xla` — lax.map over query tiles, broadcast |q - t| sums
-    fused by XLA on the VPU; works on any backend.
-  * `ops.match_pallas.knn2_l1_pallas` — a fused Pallas kernel that
-    streams train tiles through VMEM and keeps a running top-2, never
-    materializing the N×M distance matrix in HBM.
-
-`knn2_l1` dispatches between them. Tie-breaking matches BFMatcher's
-stable ordering (lowest train index wins equal distances).
+A fused Pallas kernel on the Triton route (train tiles looped inside
+each query block, running top-2 in registers, no N x M matrix in
+memory) was measured against this on an H100 and lost at the per-pair
+shape while adding minutes of compile time; see ARCHITECTURE.md.
 """
 
 from __future__ import annotations
@@ -75,21 +74,6 @@ def knn2_l1_xla(query: jnp.ndarray, train: jnp.ndarray,
     return Knn2(i1.reshape(n), d1.reshape(n), d2.reshape(n))
 
 
-def knn2_l1(query: jnp.ndarray, train: jnp.ndarray,
-            t_valid: Optional[jnp.ndarray] = None,
-            impl: str = "auto") -> Knn2:
-    """Dispatching top-2 L1 matcher.
-
-    impl: "auto" (Pallas on TPU, XLA elsewhere), "xla", "pallas".
-    """
-    if impl == "auto":
-        impl = ("pallas" if jax.default_backend() == "tpu" else "xla")
-    if impl == "pallas":
-        from sift_tpu.ops.match_pallas import knn2_l1_pallas
-        return knn2_l1_pallas(query, train, t_valid)
-    return knn2_l1_xla(query, train, t_valid)
-
-
 class Matches(NamedTuple):
     """Ratio-test-filtered matches, padded to query capacity.
 
@@ -102,14 +86,13 @@ class Matches(NamedTuple):
     good: jnp.ndarray       # (N,) bool
 
 
-@functools.partial(jax.jit, static_argnames=("ratio", "impl"))
+@functools.partial(jax.jit, static_argnames=("ratio",))
 def match_ratio(query: jnp.ndarray, train: jnp.ndarray,
                 q_valid: Optional[jnp.ndarray] = None,
                 t_valid: Optional[jnp.ndarray] = None,
-                ratio: float = 0.86,
-                impl: str = "auto") -> Matches:
+                ratio: float = 0.86) -> Matches:
     """knnMatch(k=2) + Lowe ratio test (src/main.cpp:25-40)."""
-    r = knn2_l1(query, train, t_valid, impl=impl)
+    r = knn2_l1_xla(query, train, t_valid)
     good = r.d1 <= ratio * r.d2
     # a query whose best hit is the sentinel row matched nothing real;
     # and with <2 valid train rows d2 is the sentinel, so the ratio

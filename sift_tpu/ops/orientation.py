@@ -7,11 +7,11 @@ with sigma 1.5*scl_octv, circularly smoothed by (1,4,6,4,1)/16; every
 local max >= 0.8*globalmax spawns an oriented keypoint with parabolic
 sub-bin interpolation.
 
-TPU-first restructuring: the radius is data-dependent, so each
-keypoint gathers a fixed max-radius patch (one dynamic_slice from a
-pre-padded octave stack — no scatter/gather loops) and masks samples
-outside its true radius/image interior. Histogram accumulation is 36
-masked reductions (VPU-fused), not scatter. Peak expansion emits a
+Restructured for XLA: the radius is data-dependent, so each
+keypoint gathers a fixed max-radius patch (one vmapped dynamic_slice
+from a pre-padded octave stack, which XLA emits as one parallel
+gather) and masks samples outside its true radius/image interior.
+Histogram accumulation is a one-hot contraction, not a scatter. Peak expansion emits a
 fixed number of top peaks per keypoint (cfg.max_ori_peaks) instead of
 an unbounded vector — peaks beyond that are vanishingly rare with the
 0.8 ratio + strict-local-max rule.
@@ -29,30 +29,34 @@ from sift_tpu.config import SIFTConfig, DEFAULT_CONFIG
 from sift_tpu.ops.mathutil import fast_atan2_deg, cv_round
 
 _FLT_EPS = float(np.float32(1.1920929e-07))
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _hist_bins(contrib: jnp.ndarray, bins: jnp.ndarray, n: int,
                impl: str = "onehot") -> jnp.ndarray:
     """Weighted histogram of (P,) contributions into n bins, scatter-
-    free (TPU scatters are slow).
+    free (a one-hot contraction has no write conflicts).
 
     "onehot": one (P, n) one-hot and a (1, P) @ (P, n) matmul — under
         vmap this materializes an (N, P, n) intermediate with the n=36
-        bins on the LANE axis (pads 36 -> 128 in vregs).
+        bins as the minor axis.
     "onehot_t": the transposed (n, P) one-hot and an (n, P) @ (P,)
-        matvec — the P~1700 patch samples ride the lane axis (full
-        lane utilization) and the bins the sublane axis. Same element
-        count as "onehot", ~3.5x fewer vector registers.
+        matvec — the P~1700 patch samples are the minor axis. Same
+        element count as "onehot".
     "factored": decompose bin = n2*hi + lo with n2 = ceil(sqrt(n));
         two (P, n2) one-hots and a (n2, P) @ (P, n2) matmul build the
         same histogram with ~n/(2*n2) times less intermediate traffic
         (36 -> 12 floats per sample for n=36). Same math, float sums
         reassociated.
+
+    Every product runs at full float32 precision: on a GPU the default
+    may be TF32, whose 10-bit mantissa would perturb the 0.8*max peak
+    test against the reference.
     """
     if impl == "onehot_t":
         onehot_t = (jnp.arange(n)[:, None] == bins[None, :]
                     ).astype(jnp.float32)              # (n, P)
-        return onehot_t @ contrib                      # (n,)
+        return jnp.matmul(onehot_t, contrib, precision=_HI)   # (n,)
     if impl == "factored":
         n2 = int(np.ceil(np.sqrt(n)))
         hi = bins // n2
@@ -61,13 +65,14 @@ def _hist_bins(contrib: jnp.ndarray, bins: jnp.ndarray, n: int,
                  ).astype(jnp.float32)
         oh_lo = (lo[:, None] == jnp.arange(n2)[None, :]
                  ).astype(jnp.float32)
-        h2 = (oh_hi * contrib[:, None]).T @ oh_lo        # (n2, n2)
+        h2 = jnp.matmul((oh_hi * contrib[:, None]).T, oh_lo,
+                        precision=_HI)                   # (n2, n2)
         return h2.reshape(n2 * n2)[:n]
     if impl != "onehot":
         raise ValueError(f"unknown hist impl {impl!r}")
     onehot = (bins[:, None] == jnp.arange(n)[None, :]
               ).astype(jnp.float32)
-    return (contrib[None, :] @ onehot)[0]
+    return jnp.matmul(contrib[None, :], onehot, precision=_HI)[0]
 
 
 def orientation_peaks(gauss: jnp.ndarray,
@@ -103,12 +108,8 @@ def orientation_peaks(gauss: jnp.ndarray,
     # gather one fixed max-radius patch per keypoint; the center lands
     # at local index (rp+1, rp+1) == image (r0, c0)
     pn = 2 * rp + 3
-    if cfg.ori_gather_impl == "pallas":
-        from sift_tpu.ops.ori_gather_pallas import gather_patches
-        patches = gather_patches(padded, layer - 1, r, c, pn)
-    else:
-        patches = jax.vmap(lambda l0, r0, c0: jax.lax.dynamic_slice(
-            padded, (l0 - 1, r0, c0), (1, pn, pn))[0])(layer, r, c)
+    patches = jax.vmap(lambda l0, r0, c0: jax.lax.dynamic_slice(
+        padded, (l0 - 1, r0, c0), (1, pn, pn))[0])(layer, r, c)
 
     # static offset grids for the max patch
     off = np.arange(-rp, rp + 1, dtype=np.int32)

@@ -1,7 +1,7 @@
 """Gaussian + DoG scale-space pyramids (replaces reference C6/C7).
 
 Functional twin of buildGaussianPyramid / buildDoGPyramid
-(src/sift.cpp:229-283), restructured TPU-first: each octave is one
+(src/sift.cpp:229-283), restructured for XLA: each octave is one
 (n_scales, H_o, W_o) array, its non-base layers produced by a single
 batched separable convolution of the octave base (legal because the
 reference blurs every layer directly from the base with
@@ -21,17 +21,8 @@ import jax
 import jax.numpy as jnp
 
 from sift_tpu.config import SIFTConfig, DEFAULT_CONFIG
-from sift_tpu.ops.conv import gaussian_blur_multi
+from sift_tpu.ops.conv import gaussian_blur_multi, gaussian_blur_multi_batch
 from sift_tpu.ops.image import downsample_nearest_2x
-
-
-def _blur_multi(img: jnp.ndarray, sigmas: Sequence[float]) -> jnp.ndarray:
-    """Backend dispatch: fused Pallas kernel on TPU (~90x the XLA conv
-    path there), XLA convolution elsewhere. Same math bit-for-bit."""
-    if jax.default_backend() == "tpu":
-        from sift_tpu.ops.conv_pallas import gaussian_blur_multi_pallas
-        return gaussian_blur_multi_pallas(img, sigmas)
-    return gaussian_blur_multi(img, sigmas)
 
 
 def build_gaussian_pyramid(img: jnp.ndarray,
@@ -39,25 +30,15 @@ def build_gaussian_pyramid(img: jnp.ndarray,
                            ) -> List[jnp.ndarray]:
     """Returns n_octaves arrays of shape (n_scales, H_o, W_o)."""
     sig = cfg.scale_sigmas()
-    base = _blur_multi(img.astype(jnp.float32),
-                       (cfg.init_blur_sigma,))[0]
+    base = gaussian_blur_multi(img.astype(jnp.float32),
+                               (cfg.init_blur_sigma,))[0]
     octaves: List[jnp.ndarray] = []
     for o in range(cfg.n_octaves):
         if o > 0:
             base = downsample_nearest_2x(octaves[o - 1][cfg.n_octave_layers])
-        layers = _blur_multi(base, sig[1:])                  # (S-1, H, W)
+        layers = gaussian_blur_multi(base, sig[1:])          # (S-1, H, W)
         octaves.append(jnp.concatenate([base[None], layers], axis=0))
     return octaves
-
-
-def _blur_multi_batch(imgs: jnp.ndarray,
-                      sigmas: Sequence[float]) -> jnp.ndarray:
-    """(B, H, W) x S sigmas -> (B, S, H, W), backend-dispatched."""
-    if jax.default_backend() == "tpu":
-        from sift_tpu.ops.conv_pallas import gaussian_blur_multi_batch_pallas
-        return gaussian_blur_multi_batch_pallas(imgs, sigmas)
-    from sift_tpu.ops.conv import gaussian_blur_multi_batch
-    return gaussian_blur_multi_batch(imgs, sigmas)
 
 
 def build_gaussian_pyramid_batch(imgs: jnp.ndarray,
@@ -66,11 +47,11 @@ def build_gaussian_pyramid_batch(imgs: jnp.ndarray,
     """Batched frames: (B, H, W) -> n_octaves arrays (B, S, H_o, W_o).
 
     Per-frame output is identical to build_gaussian_pyramid; the batch
-    rides one grid/conv axis so small octaves still fill the chip
-    (single-chip throughput path)."""
+    rides one conv axis so small octaves still fill the device
+    (single-device throughput path)."""
     sig = cfg.scale_sigmas()
-    base = _blur_multi_batch(imgs.astype(jnp.float32),
-                             (cfg.init_blur_sigma,))[:, 0]
+    base = gaussian_blur_multi_batch(imgs.astype(jnp.float32),
+                                     (cfg.init_blur_sigma,))[:, 0]
     octaves: List[jnp.ndarray] = []
     for o in range(cfg.n_octaves):
         if o > 0:
@@ -78,7 +59,7 @@ def build_gaussian_pyramid_batch(imgs: jnp.ndarray,
             h2, w2 = prev.shape[1] // 2, prev.shape[2] // 2
             x = prev[:, :2 * h2, :2 * w2]
             base = x.reshape(x.shape[0], h2, 2, w2, 2)[:, :, 0, :, 0]
-        layers = _blur_multi_batch(base, sig[1:])           # (B, S-1, H, W)
+        layers = gaussian_blur_multi_batch(base, sig[1:])   # (B, S-1, H, W)
         octaves.append(jnp.concatenate([base[:, None], layers], axis=1))
     return octaves
 

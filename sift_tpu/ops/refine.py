@@ -7,11 +7,11 @@ time with an LU solve; we vmap a closed-form Cramer 3x3 solve over a
 fixed-capacity candidate batch with masked state — no data-dependent
 control flow, everything unrolled for XLA.
 
-TPU layout: instead of gathering a 3x3x3 cube per candidate per step
-(27-element gathers dominated the detect stage), the ten derivative
-fields the Newton step needs (gradient, Hessian entries, center value)
-are computed DENSELY over the octave once — pure fused shift-adds on
-the VPU — and each step gathers one 10-float row per candidate.
+Layout: instead of gathering a 3x3x3 cube per candidate per step
+(27-element gathers per candidate), the ten derivative fields the
+Newton step needs (gradient, Hessian entries, center value) are
+computed DENSELY over the octave once — pure fused shift-adds — and
+each step gathers one 10-float row per candidate.
 
 Matching OpenCV's Matx::solve(DECOMP_LU) behavior on singular Hessians
 (solution := 0, which the reference then treats as converged), we map
@@ -132,14 +132,10 @@ def refine_candidates(dog: jnp.ndarray,
     border = cfg.img_border
     fields = derivative_fields(dog, nl)
 
-    # Ten separate per-field gathers per fetch. The tested alternative
-    # — concatenating the fields into one (10*DHW,) buffer and issuing
-    # ONE gather of 10*N indices — LOST its on-chip A/B decisively
-    # (REFINE_AB.json 2026-08-19: fused 14.22 ms detect vs separate
-    # 10.16 at 1080p): TPU 1-D gathers over an 83 M-element buffer are
-    # throughput-bound on the scattered accesses, and the concat adds
-    # a full extra write pass; per-gather dispatch overhead was NOT
-    # the cost. Matches the round-2 (10, DHW) axis-1 gather finding.
+    # Ten separate per-field gathers per fetch. The alternative —
+    # concatenating the fields into one (10*DHW,) buffer and issuing
+    # ONE gather of 10*N indices — adds a full extra write pass of the
+    # fields; it has not been compared on the GPU.
     def fetch(lay, rr, cc):
         """(N,) coords -> 10-tuple of per-candidate (N,) gathers.
         lay is always in [1, nl]; fields cover exactly those layers."""

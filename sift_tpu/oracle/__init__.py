@@ -1,6 +1,6 @@
 """CPU oracle: a faithful NumPy twin of the reference SIFT math.
 
-Used only by tests and baseline measurement — never by the TPU path.
+Used only by tests and baseline measurement — never by the JAX path.
 """
 
 from sift_tpu.oracle.cpu_sift import (

@@ -1,7 +1,7 @@
 """Faithful NumPy twin of the reference CPU SIFT (canhld94/SIFT-GPU).
 
 This module re-derives the reference algorithm's *math* in NumPy so the
-TPU pipeline has a trustworthy golden oracle. Every function cites the
+JAX pipeline has a trustworthy golden oracle. Every function cites the
 reference behavior it mirrors (paths relative to /root/reference).
 Deliberately preserved quirks:
 

@@ -1,10 +1,11 @@
-"""Multi-chip parallelism over jax.sharding meshes.
+"""Multi-device parallelism over jax.sharding meshes.
 
 The reference's only parallelism is OpenMP threads in one process
 (SURVEY.md §2). This package is new capability per the north star:
 data-parallel frame sharding for the SIFT front-end, query-sharded
 matching, and (back-end) sharded Schur-complement bundle adjustment —
-all expressed with shard_map + XLA collectives over ICI.
+all expressed with shard_map + XLA collectives (NCCL over NVLink on
+GPUs).
 """
 
 from sift_tpu.parallel.mesh import make_mesh, default_mesh

@@ -5,7 +5,7 @@ and points stay replicated. Because the single-chip adjuster (sfm/ba)
 is matrix-free — every cross-observation reduction is a segment-sum —
 distribution is exactly: do local segment-sums over the observation
 shard, then psum the (C,6,6)/(P,3,3)/(C,6)/(P,3) block tensors over
-ICI. Every device then computes the identical LM/CG update, keeping
+the interconnect. Every device then computes the identical LM/CG update, keeping
 the replicated state in lockstep with zero further communication.
 
 Per LM iteration the bytes on the wire are O(C*36 + P*9) floats times

@@ -24,10 +24,9 @@ incarnation kill itself (os._exit) right after checkpointing that
 step, exercising the real kill -> shrink -> resume path across a real
 process boundary (tests/test_elastic.py also SIGKILLs a live worker).
 
-On a real pod the device set is whatever the respawned process can
-still claim (a detached chip simply stops appearing); on the CPU test
-platform the supervisor pins the visible device count via
-``--xla_force_host_platform_device_count`` to simulate shrink.
+The worker runs on the CPU: the supervisor pins the visible device
+count via ``--xla_force_host_platform_device_count`` to simulate
+shrink. It has not run on GPUs.
 """
 
 from __future__ import annotations
@@ -41,15 +40,13 @@ from typing import Optional, Tuple
 
 def _worker_main(args) -> int:
     flags = os.environ.get("XLA_FLAGS", "")
-    if args.platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        if "host_platform_device_count" not in flags:
-            os.environ["XLA_FLAGS"] = (
-                f"{flags} --xla_force_host_platform_device_count="
-                f"{args.devices}").strip()
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count="
+            f"{args.devices}").strip()
     import jax
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", "cpu")
     from sift_tpu.parallel import make_mesh
     from sift_tpu.parallel.ba import bundle_adjust_sharded
     from sift_tpu.sfm import checkpoint as ck
@@ -86,7 +83,6 @@ def supervise_ba(problem_path: str, ckpt_dir: str,
                  cg_iters: int = 10,
                  n_devices: int = 8, min_devices: int = 1,
                  max_restarts: int = 4,
-                 platform: str = "cpu",
                  inject_crash_step: Optional[int] = None,
                  worker_timeout: float = 600.0,
                  on_spawn=None) -> Tuple[str, int]:
@@ -102,7 +98,7 @@ def supervise_ba(problem_path: str, ckpt_dir: str,
                "--total-iters", str(total_iters),
                "--chunk-iters", str(chunk_iters),
                "--cg-iters", str(cg_iters),
-               "--devices", str(n), "--platform", platform]
+               "--devices", str(n)]
         if inject_crash_step is not None and restarts == 0:
             cmd += ["--crash-after-step", str(inject_crash_step)]
         env = dict(os.environ)
@@ -145,8 +141,6 @@ def _parse(argv=None):
                     dest="chunk_iters")
     ap.add_argument("--cg-iters", type=int, default=10, dest="cg_iters")
     ap.add_argument("--devices", type=int, default=8)
-    ap.add_argument("--platform", default="cpu",
-                    choices=["cpu", "tpu"])
     ap.add_argument("--crash-after-step", type=int, default=None,
                     dest="crash_after_step")
     return ap.parse_args(argv)

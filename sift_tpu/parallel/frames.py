@@ -1,6 +1,6 @@
-"""Data-parallel SIFT front-end: a batch of frames sharded over chips.
+"""Data-parallel SIFT front-end: a batch of frames sharded over devices.
 
-The TPU-equivalent of scaling the reference's single-image pipeline:
+The device-parallel way of scaling the reference's single-image pipeline:
 frames are the batch dimension, sharded over the mesh "data" axis;
 each chip runs the full detect+describe graph on its local frames
 (vmapped), no cross-chip communication until matching/BA. This is the
@@ -33,11 +33,11 @@ def batched_detect_and_compute(imgs: jnp.ndarray, mesh: Mesh,
 
     cfg.frames_per_chip_mode picks how each chip runs its local
     frames: "batch" = detect_and_compute_batch (the batch rides the
-    Pallas grid / conv batch axis); "scan" = the single-frame latency
-    graph per local frame under lax.map (one compiled program, frames
-    serialized on-device — the right mode wherever the B x resolution
-    sweep in BENCH_BATCH.json shows latency dispatch beating the
-    batched path). Both produce identical per-frame results.
+    conv batch axis); "scan" = the single-frame latency graph per local
+    frame under lax.map (one compiled program, frames serialized
+    on-device — the right mode wherever `bench.py --batch-sweep` shows
+    latency dispatch beating the batched path). Both produce the same
+    per-frame results.
     """
     if cfg.frames_per_chip_mode == "scan":
         def local(x):

@@ -6,7 +6,7 @@ distances against the full train set with the single-chip kernel, and
 results concatenate for free (top-2 is row-independent). For train
 sets too big to replicate, `sharded_match_ratio_train_sharded` splits
 the TRAIN side and merges per-shard top-2 candidates with one small
-all_gather — the distance matrix itself never crosses ICI.
+all_gather — the distance matrix itself never crosses devices.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ def sharded_match_ratio(query: jnp.ndarray, train: jnp.ndarray,
                         mesh: Mesh,
                         q_valid: Optional[jnp.ndarray] = None,
                         t_valid: Optional[jnp.ndarray] = None,
-                        ratio: float = 0.86,
-                        impl: str = "auto") -> match_mod.Matches:
+                        ratio: float = 0.86) -> match_mod.Matches:
     """Query-sharded matcher: (N, D) x (M, D), N % n_data == 0."""
     n = query.shape[0]
     if q_valid is None:
@@ -37,7 +36,7 @@ def sharded_match_ratio(query: jnp.ndarray, train: jnp.ndarray,
 
     def local(q, qv, t, tv):
         return match_mod.match_ratio(q, t, q_valid=qv, t_valid=tv,
-                                     ratio=ratio, impl=impl)
+                                     ratio=ratio)
 
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P("data"), P("data"), P(None), P(None)),
@@ -57,8 +56,7 @@ def sharded_match_ratio_train_sharded(
         query: jnp.ndarray, train: jnp.ndarray, mesh: Mesh,
         q_valid: Optional[jnp.ndarray] = None,
         t_valid: Optional[jnp.ndarray] = None,
-        ratio: float = 0.86,
-        impl: str = "auto") -> match_mod.Matches:
+        ratio: float = 0.86) -> match_mod.Matches:
     """Train-sharded matcher for train sets too large to replicate.
 
     Each chip holds a train shard (replicated queries), computes local
@@ -76,7 +74,7 @@ def sharded_match_ratio_train_sharded(
         t_valid = jnp.ones((m,), bool)
 
     def local(q, t, tv):
-        r = match_mod.knn2_l1(q, t, t_valid=tv, impl=impl)
+        r = match_mod.knn2_l1_xla(q, t, t_valid=tv)
         base = jax.lax.axis_index(axis) * shard_m
         # (n_shards, N) candidates after gather
         d1 = jax.lax.all_gather(r.d1, axis)

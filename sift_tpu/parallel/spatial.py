@@ -53,21 +53,11 @@ from sift_tpu.ops import extrema as ext
 from sift_tpu.ops import descriptor as desc_mod
 from sift_tpu import sift
 
-import os
-
 
 def _band_blur(x: jnp.ndarray, sigmas) -> jnp.ndarray:
-    """Blur dispatch for the haloed band inside shard_map: the fused
-    Pallas kernel on TPU (the XLA conv twin measured ~90x slower
-    there), XLA twin elsewhere. SIFT_TPU_TILED_PALLAS=1 forces the
-    Pallas formulation (interpret-mode on CPU) so the parity tests
-    exercise the kernel path the TPU runs. The quirk zeroing is
-    applied by the caller in GLOBAL coordinates (_zero_beyond), so
-    both branches run quirk-free."""
-    if (jax.default_backend() == "tpu"
-            or os.environ.get("SIFT_TPU_TILED_PALLAS") == "1"):
-        from sift_tpu.ops.conv_pallas import gaussian_blur_multi_pallas
-        return gaussian_blur_multi_pallas(x, sigmas, apply_quirk=False)
+    """Blur for the haloed band inside shard_map. The quirk zeroing is
+    applied by the caller in GLOBAL coordinates (_zero_beyond), so the
+    blur itself runs quirk-free."""
     return conv.gaussian_blur_multi(x, sigmas, apply_quirk=False)
 
 
@@ -180,13 +170,12 @@ def _tail_octaves(base: jnp.ndarray, start_octave: int,
     the standard single-device per-octave path."""
     sig = cfg.scale_sigmas()
     nl = cfg.n_octave_layers
-    from sift_tpu.ops.pyramid import _blur_multi as _pyr_blur
     kp_parts, d_parts = [], []
     for o in range(start_octave, cfg.n_octaves):
         if o > start_octave:
             h2, w2 = base.shape[0] // 2, base.shape[1] // 2
             base = base[:2 * h2, :2 * w2].reshape(h2, 2, w2, 2)[:, 0, :, 0]
-        layers = _pyr_blur(base, sig[1:])
+        layers = conv.gaussian_blur_multi(base, sig[1:])
         gauss = jnp.concatenate([base[None], layers], axis=0)
         dog = gauss[1:] - gauss[:-1]
         if sift._octave_usable(gauss.shape[1:], cfg):

@@ -53,22 +53,21 @@ def _geometry(kpo: Keypoints, kps: Keypoints, m: match_mod.Matches,
 
 
 def detect_object(scene_gray: jnp.ndarray, object_gray: jnp.ndarray,
-                  cfg: SIFTConfig = DEFAULT_CONFIG,
-                  impl: str = "auto") -> ObjectDetection:
+                  cfg: SIFTConfig = DEFAULT_CONFIG) -> ObjectDetection:
     """Full demo flow on two grayscale f32 images (values 0..255).
 
     Twin of main() (src/main.cpp:10-72): object plays the kNN query
     role (descriptors1), scene the train role (descriptors0).
 
     Deliberately NOT one jit: each stage (detect, match, geometry) is
-    its own jitted program — one fused graph compiles for many minutes
-    on TPU while stage dispatch overhead is microseconds, and the
+    its own jitted program — one fused graph would compile far longer
+    while stage dispatch overhead is microseconds, and the
     intermediates never leave the device either way.
     """
     kps, ds = sift.detect_and_compute(scene_gray, cfg)
     kpo, do = sift.detect_and_compute(object_gray, cfg)
     m = match_mod.match_ratio(do, ds, q_valid=kpo.valid, t_valid=kps.valid,
-                              ratio=cfg.match_ratio, impl=impl)
+                              ratio=cfg.match_ratio)
     hres, proj = _geometry(kpo, kps, m, tuple(object_gray.shape))
     return ObjectDetection(
         scene_kp=kps, object_kp=kpo, scene_desc=ds, object_desc=do,

@@ -2,7 +2,7 @@
 
 New capability per the north star (BASELINE.json): the reference ends
 at a 2-D homography; this package adds the 3-D reconstruction stack,
-built TPU-first — static-shape masked observation tables, batched
+built for batched accelerator execution — static-shape masked observation tables, batched
 small-block linear algebra, and a matrix-free Schur-complement bundle
 adjuster whose hot loop is segment-sums + batched 3x3 solves, the
 exact shape that shards over device meshes with psum.

@@ -1,4 +1,4 @@
-"""Schur-complement bundle adjustment, TPU-first.
+"""Schur-complement bundle adjustment, batched and static-shaped.
 
 Levenberg-Marquardt over cameras (axis-angle + translation, 6 dof) and
 3-D points, minimizing masked Huber-robust reprojection error in
@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from sift_tpu.geometry.lie import so3_exp
+from sift_tpu.utils.precision import highest_precision
 
 
 class BAProblem(NamedTuple):
@@ -51,6 +52,7 @@ class BAProblem(NamedTuple):
     fixed_cams: jnp.ndarray
 
 
+@highest_precision
 def _project_one(cam: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Normalized-coordinate projection of one point by one camera."""
     r = so3_exp(cam[:3])
@@ -136,6 +138,7 @@ def _cost(prob: BAProblem, huber_delta: float, loss: str,
 _SAME = object()
 
 
+@highest_precision
 def _lm_step(prob: BAProblem, lam: jnp.ndarray, huber_delta: float,
              loss: str, cg_iters: int, psum=None, psum_pt=_SAME):
     """One damped Schur/CG step. Returns (dcams (C,6), dpts (P,3)).
@@ -225,6 +228,7 @@ def _lm_step(prob: BAProblem, lam: jnp.ndarray, huber_delta: float,
     return dc, dp
 
 
+@highest_precision
 def bundle_adjust_loop(prob: BAProblem, iters: int, cg_iters: int,
                        huber_delta: float, loss: str, lam0: float,
                        psum=None, psum_pt=_SAME) -> BAProblem:

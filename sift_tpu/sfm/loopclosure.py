@@ -2,7 +2,7 @@
 config 5; no reference counterpart — the reference is a two-image
 demo, SURVEY.md §2).
 
-Two-level retrieval, both TPU-shaped:
+Two-level retrieval, both dense and batched:
 
   1. frame-level candidate selection: each frame gets a compact
      signature — the mean of its descriptors projected through the

@@ -16,10 +16,9 @@ counterpart of the reference's two-image demo (src/main.cpp:10-72):
        track graph, initialized from the corrected trajectory
     -> PLY / JSON export (sfm.export)
 
-Because no real image sequence ships with the reference corpus, the
-harness renders one FROM the corpus: `render_corner_sequence` texture-
-maps corpus photographs onto the four planes of a concave box corner
-and renders a known closed camera loop through it (planar homography
+The harness renders its own image sequence: `render_corner_sequence`
+texture-maps seeded procedural textures (sift_tpu.synth) onto the four
+planes of a concave box corner and renders a known closed camera loop through it (planar homography
 per plane — exact pinhole geometry, real parallax between the planes,
 genuinely revisited viewpoints for the loop-closure stage). Ground
 truth poses make the ATE gates exact.
@@ -45,7 +44,7 @@ from sift_tpu.utils.metrics import ate_rmse, camera_centers
 
 
 # ---------------------------------------------------------------------------
-# corpus-derived sequence renderer
+# procedural-texture sequence renderer
 # ---------------------------------------------------------------------------
 
 # (origin, u-axis, v-axis) of each textured plane, world units; the
@@ -58,7 +57,7 @@ _PLANES = [
     ((-3.0, -2.0, 2.0), (0.0, 0.0, 4.0), (0.0, 4.0, 0.0)),   # left wall
 ]
 
-_TEXTURES = ["scene.jpg", "bike.png", "airplane.jpg", "cat2.jpg"]
+_TEXTURE_HW = (480, 640)      # texture map size per plane
 
 
 def _look_at(center: np.ndarray, target: np.ndarray) -> np.ndarray:
@@ -72,13 +71,15 @@ def _look_at(center: np.ndarray, target: np.ndarray) -> np.ndarray:
     return np.stack([right, down, fwd])
 
 
-def render_corner_sequence(data_dir: str = "/root/reference/data",
-                           n_frames: int = 24,
+def render_corner_sequence(n_frames: int = 24,
                            size: Tuple[int, int] = (240, 320),
                            radius: float = 0.9,
                            seed: int = 0
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Render a closed camera loop through the textured corner.
+
+    Each plane carries its own seeded procedural texture
+    (sift_tpu.synth.procedural_texture, seeds seed*4 + plane index).
 
     Returns (frames (F, H, W) float32 0-255, K (3, 3),
     gt_cams (F, 6) [w|t] world->cam). The trajectory is a circle in
@@ -86,20 +87,14 @@ def render_corner_sequence(data_dir: str = "/root/reference/data",
     the last frames revisit the first frames' viewpoint — a real loop
     closure for the retrieval stage, not a synthetic edge.
     """
-    import cv2
+    from sift_tpu import synth
     h, w = size
     f = 0.9 * w
     k = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]])
     rng = np.random.default_rng(seed)
 
-    texs = []
-    for name in _TEXTURES:
-        img = cv2.imread(f"{data_dir}/{name}", cv2.IMREAD_GRAYSCALE)
-        s = 640.0 / max(img.shape)
-        if s < 1.0:
-            img = cv2.resize(img, (int(img.shape[1] * s),
-                                   int(img.shape[0] * s)))
-        texs.append(img.astype(np.float32))
+    texs = [synth.procedural_texture(*_TEXTURE_HW, seed=seed * 4 + i)
+            for i in range(len(_PLANES))]
 
     frames = np.zeros((n_frames, h, w), np.float32)
     cams = np.zeros((n_frames, 6), np.float64)
@@ -121,11 +116,7 @@ def render_corner_sequence(data_dir: str = "/root/reference/data",
             m = np.stack([r @ np.asarray(u), r @ np.asarray(v),
                           r @ np.asarray(o) + t], axis=1)
             hom = k @ m @ np.diag([1.0 / (tw_ - 1), 1.0 / (th_ - 1), 1.0])
-            warped = cv2.warpPerspective(tex, hom, (w, h),
-                                         flags=cv2.INTER_LINEAR)
-            mask = cv2.warpPerspective(
-                np.ones_like(tex), hom, (w, h),
-                flags=cv2.INTER_NEAREST).astype(bool)
+            warped, mask = synth.warp_perspective(tex, hom, (h, w))
             put = mask & ~covered
             canvas[put] = warped[put]
             covered |= mask

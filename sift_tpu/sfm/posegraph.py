@@ -3,13 +3,13 @@
 Gauss-Newton on relative-pose constraints: given edges (i, j) with
 measured relative transforms T_ij, minimize
   sum_e || log( T_ij^-1 · T_i^-1 · T_j ) ||^2_W
-over absolute poses T_i (first pose fixed as gauge). TPU-first: a
+over absolute poses T_i (first pose fixed as gauge). Batched: a
 static masked edge table; per-EDGE 6x6 Jacobian blocks via vmapped
 jacfwd (O(E) work/memory) scatter-added into the (6V x 6V) normal
 equations — never the dense (6E x 6V) whole-problem Jacobian, whose
 jacfwd cost is quadratic in trajectory length. The damped normal
 solve itself is dense: pose graphs are small next to BA and a (6V)^2
-solve is MXU food up to thousands of vertices; beyond that,
+solve is cheap dense work up to thousands of vertices; beyond that,
 sfm/posegraph_dist.py partitions the graph.
 """
 
@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from sift_tpu.geometry.lie import so3_exp, so3_log
+from sift_tpu.utils.precision import highest_precision
 
 
 class PoseGraph(NamedTuple):
@@ -38,6 +39,7 @@ class PoseGraph(NamedTuple):
     fixed: jnp.ndarray
 
 
+@highest_precision
 def _compose_inv_ab(a6, b6):
     """log-ish residual of T_a^-1 T_b vs identity, as (R, t) pieces."""
     ra = so3_exp(a6[:3])
@@ -47,6 +49,7 @@ def _compose_inv_ab(a6, b6):
     return r, t
 
 
+@highest_precision
 def _edge_residual(pose_i, pose_j, rel6):
     """6-vector residual of one edge."""
     # predicted relative: T_i^-1 T_j
@@ -65,6 +68,7 @@ def _edge_jacobians(pose_i, pose_j, rel6):
 
 
 @functools.partial(jax.jit, static_argnames=("iters",))
+@highest_precision
 def optimize_pose_graph(g: PoseGraph, iters: int = 15,
                         lam0: float = 1e-4) -> PoseGraph:
     """Damped Gauss-Newton with accept/reject on the total cost.

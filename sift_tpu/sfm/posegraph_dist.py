@@ -18,7 +18,7 @@ process, OpenMP threads); this capability is new, mandated by the
 north star. Partitioning happens host-side in NumPy (static shapes:
 every block is padded to the same local vertex/edge capacity);
 the per-round compute + exchange runs under shard_map so the same
-code drives a virtual CPU mesh, one TPU slice over ICI, or
+code drives a virtual CPU mesh, the GPUs of one host, or
 multi-process DCN deployments (tests/_dist_worker.py runs it across
 a real process boundary).
 """

@@ -5,11 +5,11 @@ two-view geometry, recover globally consistent absolute rotations —
 the standard initializer for global SfM pipelines, complementing the
 incremental driver (sfm/incremental.py) on unordered collections.
 
-TPU-first formulation: the chordal L2 problem
+Batched formulation: the chordal L2 problem
     min_R  sum_e w_e || R_j - R_ij R_i ||_F^2 ,  R_i in SO(3)
 relaxes to the three smallest eigenvectors of a (3N, 3N) symmetric
 block Laplacian — assembled with one vectorized scatter-add, solved
-with one dense `eigh` (MXU food; pose counts are small next to map
+with one dense `eigh` (cheap dense work; pose counts are small next to map
 points), followed by per-block SVD projection onto SO(3) (vmapped 3x3
 SVDs). Optional IRLS reweighting rounds give robustness to outlier
 edges without any combinatorial machinery.
@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
+from sift_tpu.utils.precision import highest_precision
 
 
 def _block_laplacian(n: int, ei: jnp.ndarray, ej: jnp.ndarray,
@@ -48,6 +49,7 @@ def _block_laplacian(n: int, ei: jnp.ndarray, ej: jnp.ndarray,
     return mat0.at[rows, cols].add(blocks)
 
 
+@highest_precision
 def _project_so3(m: jnp.ndarray) -> jnp.ndarray:
     """Nearest rotation to a 3x3 block (SVD with det correction).
 
@@ -62,6 +64,7 @@ def _project_so3(m: jnp.ndarray) -> jnp.ndarray:
 
 
 @functools.partial(jax.jit, static_argnames=("n_frames", "anchor"))
+@highest_precision
 def _solve(ei, ej, rel, w, n_frames: int, anchor: int):
     lap = _block_laplacian(n_frames, ei, ej, rel, w)
     _, vecs = jnp.linalg.eigh(lap)
@@ -80,6 +83,7 @@ def _solve(ei, ej, rel, w, n_frames: int, anchor: int):
 
 
 @jax.jit
+@highest_precision
 def _residuals(ei, ej, rel, rots):
     pred = jnp.einsum("eij,ejk->eik", rel, rots[ei])
     return jnp.sqrt(jnp.sum((rots[ej] - pred) ** 2,

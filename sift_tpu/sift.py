@@ -1,6 +1,6 @@
 """SIFT detect + describe facade (replaces reference C9, SIFT_NCL).
 
-Twin of SIFT_NCL (src/sift.cpp:59-91) restructured TPU-first: the
+Twin of SIFT_NCL (src/sift.cpp:59-91) restructured for XLA: the
 whole pipeline is jittable with static shapes. Keypoints live in
 fixed-capacity masked batches (per-octave candidate caps, global
 max_keypoints), dynamic std::vector growth replaced by top_k
@@ -159,7 +159,7 @@ def octave_saturation(kp: Keypoints, cfg: SIFTConfig = DEFAULT_CONFIG
 
     A near-full batch means the out_caps[o] compactions MAY have
     dropped valid keypoints (ranked by response, weakest first) — the
-    TPU analogue of the reference's unbounded std::vector emit
+    fixed-capacity analogue of the reference's unbounded std::vector emit
     (src/sift.cpp:538). NEAR-full rather than exactly full: the
     mid-compaction (detect_octave) truncates BEFORE orientation, whose
     strict-local-max rule can then invalidate a few kept slots — an
@@ -209,27 +209,16 @@ def detect_and_compute(img: jnp.ndarray, cfg: SIFTConfig = DEFAULT_CONFIG
 def detect_and_compute_batch(imgs: jnp.ndarray,
                              cfg: SIFTConfig = DEFAULT_CONFIG
                              ) -> Tuple[Keypoints, jnp.ndarray]:
-    """Single-chip throughput mode: B frames in one program.
+    """Single-device throughput mode: B frames in one program.
 
     (B, H, W) -> (Keypoints with (B, N) fields, (B, N, 128)
     descriptors); row b equals detect_and_compute(imgs[b]) exactly
-    (parity-tested). Latency-mode dispatch runs the 25 per-octave
-    kernels one frame at a time and underfills the chip on small
+    (parity-tested). Latency-mode dispatch runs the per-octave
+    programs one frame at a time and underfills the device on small
     octaves; here the batch rides one grid/conv axis through pyramid
     and extrema scan, and the gather-heavy tail is vmapped. Use
     jax.tree.map(lambda a: a[b], kp) for a per-frame view.
     """
-    # The per-octave tail below runs under vmap; the Pallas patch
-    # gather (scalar-prefetch grid + manual DMA) is only proven on
-    # hardware in the unbatched facade, so the batch path pins both
-    # gathers to the vmap-safe dynamic_slice formulation (identical
-    # values, tests/test_ori_gather.py / test_descr_gather.py).
-    import dataclasses
-    if (cfg.ori_gather_impl != "dynamic_slice"
-            or cfg.descr_gather_impl != "dynamic_slice"):
-        cfg = dataclasses.replace(cfg,
-                                  ori_gather_impl="dynamic_slice",
-                                  descr_gather_impl="dynamic_slice")
     octs = pyr.build_gaussian_pyramid_batch(imgs, cfg)
     dogs = pyr.build_dog_pyramid_batch(octs)
     kp_parts = []

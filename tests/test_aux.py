@@ -102,11 +102,3 @@ def rng():
     outcomes depend on which other modules ran first."""
     return _np_rng_mod.default_rng(0)
 
-
-def test_backend_health_probe():
-    """Subprocess-bounded backend probe: ok on a pinned-CPU child,
-    structured failure (not a hang) on an impossible platform."""
-    rep = health.backend_health(timeout_s=120.0, platform="cpu")
-    assert rep["ok"] and rep["backend"] == "cpu", rep
-    bad = health.backend_health(timeout_s=60.0, platform="nosuch")
-    assert not bad["ok"] and "error" in bad, bad

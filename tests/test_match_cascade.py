@@ -1,6 +1,6 @@
 """Cascade matcher vs the exact matcher: decision agreement on real
-corpus descriptors (the VERDICT 'ratio-test decisions unchanged'
-criterion) and synthetic stress cases."""
+SIFT descriptors of a seeded textured image (the 'ratio-test
+decisions unchanged' criterion) and synthetic stress cases."""
 
 import numpy as np
 import pytest
@@ -29,8 +29,7 @@ def test_cascade_agrees_with_exact_on_corpus(corpus_descs):
     ).astype(np.float32)
     exact = match_mod.match_ratio(
         jnp.asarray(desc), jnp.asarray(train),
-        q_valid=jnp.asarray(valid), t_valid=jnp.asarray(valid),
-        impl="xla")
+        q_valid=jnp.asarray(valid), t_valid=jnp.asarray(valid))
     casc = match_ratio_cascade(
         jnp.asarray(desc), jnp.asarray(train),
         q_valid=jnp.asarray(valid), t_valid=jnp.asarray(valid))
@@ -93,8 +92,8 @@ def test_cascade_scales_to_map_sized_train():
 def test_cascade_at_advertised_100k_scale():
     """The module advertises 100k+ point maps: at 131072 train rows
     with the default n_candidates the cascade must still route every
-    query to its true twin (bench_cascade.py / CASCADE.json carries
-    the full agreement sweep vs the exact matcher)."""
+    query to its true twin (bench_cascade.py prints the full
+    agreement sweep vs the exact matcher)."""
     rng = np.random.default_rng(5)
 
     def mk(n):

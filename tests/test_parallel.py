@@ -70,9 +70,8 @@ def descs(rng):
 
 def test_query_sharded_match(descs, mesh8):
     q, t = descs
-    ref = match_mod.match_ratio(q, t, impl="xla")
-    out = sharded_match_ratio(jnp.asarray(q), jnp.asarray(t), mesh8,
-                              impl="xla")
+    ref = match_mod.match_ratio(q, t)
+    out = sharded_match_ratio(jnp.asarray(q), jnp.asarray(t), mesh8)
     np.testing.assert_array_equal(np.asarray(out.good), np.asarray(ref.good))
     np.testing.assert_array_equal(np.asarray(out.train_idx),
                                   np.asarray(ref.train_idx))
@@ -80,9 +79,9 @@ def test_query_sharded_match(descs, mesh8):
 
 def test_train_sharded_match(descs, mesh8):
     q, t = descs
-    ref = match_mod.match_ratio(q, t, impl="xla")
+    ref = match_mod.match_ratio(q, t)
     out = sharded_match_ratio_train_sharded(
-        jnp.asarray(q), jnp.asarray(t), mesh8, impl="xla")
+        jnp.asarray(q), jnp.asarray(t), mesh8)
     np.testing.assert_array_equal(np.asarray(out.good), np.asarray(ref.good))
     np.testing.assert_array_equal(np.asarray(out.train_idx),
                                   np.asarray(ref.train_idx))
@@ -94,10 +93,10 @@ def test_train_sharded_respects_masks(descs, mesh8):
     q, t = descs
     t_valid = np.ones(len(t), bool)
     t_valid[1::2] = False
-    ref = match_mod.match_ratio(q, t, t_valid=t_valid, impl="xla")
+    ref = match_mod.match_ratio(q, t, t_valid=t_valid)
     out = sharded_match_ratio_train_sharded(
         jnp.asarray(q), jnp.asarray(t), mesh8,
-        t_valid=jnp.asarray(t_valid), impl="xla")
+        t_valid=jnp.asarray(t_valid))
     np.testing.assert_array_equal(np.asarray(out.good), np.asarray(ref.good))
     got = np.asarray(out.train_idx)[np.asarray(out.good)]
     want = np.asarray(ref.train_idx)[np.asarray(ref.good)]

@@ -27,5 +27,5 @@ def test_config1_recall_vs_compiled_reference():
     assert r["keypoint_recall_object"] >= 0.95, r
     assert r["match_recall"] >= 0.95, r
     # keypoint counts land exactly on the reference's (486/128)
-    assert abs(r["tpu_scene_kpts"] - r["ref_scene_kpts"]) <= 5, r
-    assert abs(r["tpu_object_kpts"] - r["ref_object_kpts"]) <= 5, r
+    assert abs(r["scene_kpts"] - r["ref_scene_kpts"]) <= 5, r
+    assert abs(r["object_kpts"] - r["ref_object_kpts"]) <= 5, r
