@@ -8,11 +8,10 @@
     python bench.py --descr-ab      # descr_layout A/B (detect+describe)
     python bench.py --band          # blur on spatial-tiling band shapes
 
-Every mode needs a GPU and exits non-zero without one (pass
---platform cpu to rehearse the control flow on the CPU; its numbers
-are CPU numbers, never device metrics). Inputs are seeded textured
-frames (sift_tpu.synth). Times are host-clock wall time around calls
-ended by `jax.block_until_ready`, after a warm-up call that compiles;
+Every mode needs a GPU and exits non-zero without one. Inputs are
+seeded textured frames (sift_tpu.synth). Times are host-clock wall
+time around calls ended by `jax.block_until_ready`, after a warm-up
+call that compiles;
 each result is one JSON line stamped with the device (platform,
 device_kind, count) and the card's nvidia-smi name and power limit.
 
@@ -229,14 +228,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--hw", type=int, nargs=2, default=HD,
                     metavar=("H", "W"), help="frame size (default 1080p)")
-    ap.add_argument("--platform", default="gpu", choices=("gpu", "cpu"),
-                    help="cpu only to rehearse; the default fails "
-                         "without a GPU")
     args = ap.parse_args(argv)
 
-    from sift_tpu.utils.device import select_platform
+    from sift_tpu.utils.device import require_gpu
     from sift_tpu.utils.compile_cache import enable_compile_cache
-    select_platform(args.platform)
+    require_gpu()
     enable_compile_cache()
 
     hw = tuple(args.hw)

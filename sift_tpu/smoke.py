@@ -12,6 +12,7 @@ Tolerances, each with its reason, are module constants below.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from typing import Dict, Optional, Sequence, Tuple
@@ -44,14 +45,17 @@ RATIO_AGREE_MIN = 0.99
 ORACLE_RECALL_MIN = 0.97
 # RANSAC + refinement vs a float64 NumPy DLT + Gauss-Newton on the
 # same inlier set: corner transfer over an 800 px square. float32
-# rounding of 800 px coordinates is ~5e-5 px; TF32 products (10-bit
-# mantissa) would move corners by tenths of a pixel.
-HOMOGRAPHY_CORNER_TOL_PX = 0.02
+# rounding alone leaves 5e-5 to 1.1e-4 px, depending on the seed; the
+# limit is 18x the largest. Unpinned products (TF32 allowed) read
+# 9.6e-5 px on an H100, inside that spread, so this check cannot tell
+# them apart: tests/test_precision.py checks the pin itself.
+HOMOGRAPHY_CORNER_TOL_PX = 2e-3
 # BA on the card vs the same solve on the CPU backend: final RMS
 # reprojection error (normalized coords; observation noise 1e-3)
-# within 1% and cameras within 1e-4 — TF32 residuals alone are
-# ~5e-3 at depth 10.
-BA_RMSE_RTOL = 0.01
+# within 0.1% and cameras within 1e-4. Pinned runs on an H100 read
+# equal RMSE to seven digits and cameras within 4e-6 to 1e-5; unpinned,
+# 2.1e-5.
+BA_RMSE_RTOL = 1e-3
 BA_CAM_TOL = 1e-4
 
 
@@ -68,6 +72,16 @@ def log(msg: str) -> None:
     """Progress on stderr, so a slow step is named in a cut run."""
     print(f"[smoke {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr,
           flush=True)
+
+
+@contextlib.contextmanager
+def _step(seconds: Dict[str, float], name: str):
+    """Log a sub-step's start and record its wall seconds, compilation
+    included, under `name`."""
+    log(name)
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
 
 
 def _timed(fn, n: int) -> Dict[str, float]:
@@ -453,7 +467,7 @@ def _spans(arr, n: int) -> bool:
 
 
 def phase_four_cards(n: int = 4, frame_hw=(1080, 1920), seed=4,
-                     n_query=1536, n_train=4096, n_cams=50,
+                     n_query=1536, n_train=1536, n_cams=50,
                      n_pts=10000) -> dict:
     """The multi-device paths users call, each against its one-device
     twin, on a 1-D mesh of n devices; every sharded output must span
@@ -467,22 +481,25 @@ def phase_four_cards(n: int = 4, frame_hw=(1080, 1920), seed=4,
 
     check(len(jax.devices()) >= n, f"need {n} devices")
     mesh = parallel.default_mesh(n)
-    out = {"devices": n}
+    sec: Dict[str, float] = {}
+    out = {"devices": n, "step_seconds": sec}
 
     frames = np.stack([synth.textured_image(*frame_hw, seed=seed + i)
                        for i in range(n)])
-    log("four_cards: batched_detect_and_compute")
-    kp_b, d_b = parallel.batched_detect_and_compute(jnp.asarray(frames),
-                                                    mesh, CFG)
+    with _step(sec, "batched_detect_and_compute"):
+        kp_b, d_b = jax.block_until_ready(
+            parallel.batched_detect_and_compute(jnp.asarray(frames), mesh,
+                                                CFG))
     check(_spans(d_b, n), "batched descriptors not on all devices")
-    log("four_cards: per-frame detect_and_compute")
     l1 = []
-    for i in range(n):
-        kp1, d1 = sift.detect_and_compute(jnp.asarray(frames[i]), CFG)
-        v = np.asarray(kp1.valid)
-        check((np.asarray(kp_b.valid)[i] == v).all(),
-              f"frame {i}: batched keypoint validity differs")
-        l1.append(np.abs(np.asarray(d_b)[i][v] - np.asarray(d1)[v]).sum(1))
+    with _step(sec, "per-frame detect_and_compute"):
+        for i in range(n):
+            kp1, d1 = sift.detect_and_compute(jnp.asarray(frames[i]), CFG)
+            v = np.asarray(kp1.valid)
+            check((np.asarray(kp_b.valid)[i] == v).all(),
+                  f"frame {i}: batched keypoint validity differs")
+            l1.append(np.abs(np.asarray(d_b)[i][v]
+                             - np.asarray(d1)[v]).sum(1))
     l1 = np.concatenate(l1)
     check(np.median(l1) <= DESC_L1_MEDIAN_TOL
           and np.percentile(l1, 99) <= DESC_L1_P99_TOL,
@@ -492,15 +509,21 @@ def phase_four_cards(n: int = 4, frame_hw=(1080, 1920), seed=4,
                              "desc_l1_median": float(np.median(l1)),
                              "desc_l1_p99": float(np.percentile(l1, 99))}
 
+    # descriptor slots at the per-pair shape, a quarter of them empty
+    # (padding past the keypoint count), so the masks are exercised
     rng = np.random.default_rng(seed)
     q = jnp.asarray(random_descriptors(rng, n_query))
     t = jnp.asarray(random_descriptors(rng, n_train))
-    ref = jax.device_get(match_ratio(q, t))
+    qv = jnp.asarray(rng.random(n_query) < 0.75)
+    tv = jnp.asarray(rng.random(n_train) < 0.75)
+    with _step(sec, "one-device match_ratio"):
+        ref = jax.device_get(match_ratio(q, t, q_valid=qv, t_valid=tv))
     for name, fn in (("query_sharded", parallel.sharded_match_ratio),
                      ("train_sharded",
                       parallel.sharded_match_ratio_train_sharded)):
-        log(f"four_cards: {name} matching")
-        r = fn(q, t, mesh)
+        with _step(sec, f"{name} matching"):
+            r = jax.block_until_ready(fn(q, t, mesh, q_valid=qv,
+                                         t_valid=tv))
         check(_spans(r.good, n), f"{name}: output not on all devices")
         got = jax.device_get(r)
         agree = float(((np.asarray(got.good) == np.asarray(ref.good))
@@ -510,13 +533,13 @@ def phase_four_cards(n: int = 4, frame_hw=(1080, 1920), seed=4,
         out[name] = {"agree": agree}
 
     prob = ba_problem(np.random.default_rng(seed + 1), n_cams, n_pts)
-    log("four_cards: one-device bundle_adjust")
-    ref_ba = jax.device_get(bundle_adjust(prob))
+    with _step(sec, "one-device bundle_adjust"):
+        ref_ba = jax.device_get(bundle_adjust(prob))
     for name, fn in (("ba_obs_sharded", parallel.bundle_adjust_sharded),
                      ("ba_point_sharded",
                       parallel.bundle_adjust_point_sharded)):
-        log(f"four_cards: {name}")
-        r = fn(prob, mesh)
+        with _step(sec, name):
+            r = jax.block_until_ready(fn(prob, mesh))
         check(_spans(r.cameras, n) and _spans(r.points, n),
               f"{name}: output not on all devices")
         diff = float(np.abs(np.asarray(r.cameras)
@@ -526,9 +549,10 @@ def phase_four_cards(n: int = 4, frame_hw=(1080, 1920), seed=4,
                      "cam_max_diff": diff}
         check(diff <= 1e-3, f"{name}: {out[name]}")
 
-    log("four_cards: detect_and_compute_tiled")
     img = jnp.asarray(frames[0])
-    kp_t, d_t = parallel.detect_and_compute_tiled(img, mesh, CFG)
+    with _step(sec, "detect_and_compute_tiled"):
+        kp_t, d_t = jax.block_until_ready(
+            parallel.detect_and_compute_tiled(img, mesh, CFG))
     check(_spans(d_t, n) and _spans(kp_t.x, n),
           "tiled detect: output not on all devices")
     kp_s, d_s = sift.detect_and_compute(img, CFG)
